@@ -1,7 +1,8 @@
-"""eorb_slam_tpu — a TPU-native (JAX/XLA/Pallas) event-based visual-inertial SLAM engine.
+"""eorb_slam_tpu — a JAX event-based visual-inertial SLAM engine.
 
 Brand-new implementation with the capabilities of the reference EORB_SLAM
-(ORB-SLAM3 + DAVIS event front-end, see SURVEY.md), re-designed TPU-first:
+(ORB-SLAM3 + DAVIS event front-end, see SURVEY.md), re-designed for
+accelerators programmed through XLA:
 
 - fixed-capacity tensor map state instead of pointer graphs,
 - one masked Gauss-Newton/LM optimizer with Schur landmark elimination
@@ -13,10 +14,11 @@ Brand-new implementation with the capabilities of the reference EORB_SLAM
 
 import jax as _jax
 
-# Geometry/optimizer math needs true f32 matmuls: the platform default lets
-# XLA run small 3x3/6x6 contractions at bf16-class precision, which breaks
-# rotation orthonormality (observed 6e-3 error in so3_exp on this stack).
-# Hot large-matmul kernels opt into bf16 explicitly via dtypes instead.
+# Geometry/optimizer math needs true float32 products. On an NVIDIA GPU the
+# default precision lets XLA run float32 matmuls as TF32 (about three
+# decimal digits), which breaks rotation orthonormality and the GN/LM
+# solves, so every float32 product in the process runs at "highest".
+# chip_smoke.py checks so3_exp orthonormality on the card.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 __version__ = "0.1.0"

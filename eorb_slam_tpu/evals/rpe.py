@@ -9,7 +9,7 @@ aligned independently), which is how event-only runs with re-initializations
 are scored (reference my_eval_ape.py `eval_est_file` loops over
 `read_dosconn_graph_list` pieces).
 
-Host-side numpy: evaluation is offline, not a TPU hot path.
+Host-side numpy: evaluation is offline, not a device hot path.
 """
 
 from __future__ import annotations

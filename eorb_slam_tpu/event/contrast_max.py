@@ -86,7 +86,7 @@ def fit_rt2d_points(
 ):
     """Closed-form (omega, vx, vy) flow fit from matched points.
 
-    TPU-native equivalent of the reference's SE2 fit of matched keypoints
+    Equivalent of the reference's SE2 fit of matched keypoints
     (MyOptimizer::optimize2D, include/Utils/MyOptimizer.h:78), which feeds
     one of the MCI candidates: small-angle least squares of the model
     flow = dt * [-omega*(y-cy) + vx, omega*(x-cx) + vy] against the

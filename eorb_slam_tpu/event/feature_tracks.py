@@ -1,6 +1,6 @@
 """Fixed-capacity persistent feature tracks (KLT-carried, landmark-linked).
 
-TPU-native redesign of ``FeatureTrack`` (reference
+Redesign of ``FeatureTrack`` (reference
 include/Utils/FeatureTrack.h:21-74, src/Utils/FeatureTrack.cpp) — the
 backbone of the continuous event tracker ``EvAsynchTrackerU`` (reference
 src/Event/EvAsynchTrackerU.cpp:744-961: trackLastFeatures /

@@ -1,14 +1,12 @@
 """Event tensorization: Gaussian-splat histograms, motion-compensated
 images (MCI), and contrast/focus metrics.
 
-TPU-native replacement for ``EvImConverter`` (reference
+Replacement for ``EvImConverter`` (reference
 src/Event/EventConversion.cc:215-269 ev2im_gauss, :280-534 ev2mci_gg_f
 overloads, :74-119 focus metrics). Events are fixed-shape ``(N,4)`` float
-tensors ``[ts, x, y, p]`` with validity masks; each event splats a
-truncated 2D Gaussian onto the accumulator via a static 2D stencil of
-scatter-adds (the stencil unrolls to S^2 dense scatter ops — no
-data-dependent shapes, fully jittable; hot enough to be a Pallas target
-later).
+tensors ``[ts, x, y, p]`` with validity masks; each event adds a truncated
+2D Gaussian to the accumulator, computed as one separable contraction
+(no data-dependent shapes, fully jittable).
 
 The splat is DIFFERENTIABLE w.r.t. the warped event coordinates, which is
 what makes contrast maximization a plain jitted gradient ascent instead of
@@ -22,6 +20,7 @@ import functools
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 from eorb_slam_tpu.geometry import lie
 
@@ -34,8 +33,7 @@ def _splat_gauss_separable(
 
     G(dx,dy) = gx(dx)·gy(dy), so the accumulated image is exactly
     ``A^T B`` with A[n,h] = w_n·gy(h−y_n), B[n,w] = gx(w−x_n) — a single
-    (H,N)×(N,W) contraction that runs on the MXU instead of N·S² serialized
-    scatter-adds (scatter is the one memory op TPUs are bad at). Out-of-image
+    (H,N)×(N,W) contraction instead of N·S² scatter-adds. Out-of-image
     events contribute nothing because their row/col windows are empty.
     """
     inv2s2 = 1.0 / (2.0 * sigma * sigma)
@@ -66,19 +64,42 @@ def splat_gauss(
 
     Equivalent of ``EvImConverter::ev2im_gauss`` (reference
     src/Event/EventConversion.cc:215-269), computed as a separable rank-1
-    accumulation (see ``_splat_gauss_separable``); on TPU backends a Pallas
-    kernel fuses the weight-matrix construction with the contraction so A/B
-    never round-trip through HBM (ops/pallas_splat.py). Returns (H,W) float.
+    accumulation (see ``_splat_gauss_separable``). Returns (H,W) float.
     Differentiable w.r.t. ``xy`` (contrast maximization backpropagates
     through the splat).
     """
     w_ev = jnp.where(use_polarity, pol, 1.0) * valid.astype(xy.dtype)
     trunc = stencil / 2.0  # matches the reference's truncated 3-sigma window
-    from eorb_slam_tpu.ops import pallas_splat
-
-    if pallas_splat.use_pallas():
-        return pallas_splat.splat(xy, w_ev, H=H, W=W, sigma=sigma, trunc=trunc)
     return _splat_gauss_separable(xy, w_ev, H, W, sigma, trunc)
+
+
+def splat_gauss_reference(xy, valid, pol, H: int, W: int, sigma: float = 1.0,
+                          stencil: int = 5,
+                          use_polarity: bool = False) -> np.ndarray:
+    """float64 numpy per-event stencil form of :func:`splat_gauss`: each
+    event adds ``w·exp(-(dx²+dy²)/2σ²)`` to every in-image pixel within
+    ``stencil/2`` of it on both axes. The plain reference the splat is
+    checked against."""
+    xy = np.asarray(xy, np.float64)
+    w = np.asarray(valid, np.float64)
+    if use_polarity:
+        w = w * np.asarray(pol, np.float64)
+    trunc = stencil / 2.0
+    img = np.zeros((H, W), np.float64)
+    h0 = np.ceil(xy[:, 1] - trunc)
+    w0 = np.ceil(xy[:, 0] - trunc)
+    for oy in range(int(np.floor(2 * trunc)) + 1):
+        hh = h0 + oy
+        dy = hh - xy[:, 1]
+        for ox in range(int(np.floor(2 * trunc)) + 1):
+            ww = w0 + ox
+            dx = ww - xy[:, 0]
+            ok = ((np.abs(dy) <= trunc) & (np.abs(dx) <= trunc)
+                  & (hh >= 0) & (hh < H) & (ww >= 0) & (ww < W) & (w != 0))
+            val = w * np.exp(-(dx * dx + dy * dy) / (2.0 * sigma * sigma))
+            np.add.at(img, (hh[ok].astype(np.int64), ww[ok].astype(np.int64)),
+                      val[ok])
+    return img
 
 
 def normalize_to_image(acc: jnp.ndarray) -> jnp.ndarray:

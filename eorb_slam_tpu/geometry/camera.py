@@ -1,6 +1,6 @@
 """Batched camera models: radial-tangential pinhole and Kannala-Brandt-8 fisheye.
 
-TPU-native re-design of the reference's GeometricCamera hierarchy
+Re-design of the reference's GeometricCamera hierarchy
 (reference include/CameraModels/GeometricCamera.h:94-140,
 src/CameraModels/Pinhole.cpp, src/CameraModels/KannalaBrandt8.cpp):
 instead of virtual per-point calls, every op is a pure function over
@@ -136,8 +136,8 @@ def undistort_points(params, uv):
 
     Equivalent of Frame::UndistortKeyPoints / MyCalibrator::undistPoint.
     Jitted at top level: it is called eagerly once per frame, and the
-    20-step fixed-point loop would otherwise dispatch ~100 tiny eager ops
-    (catastrophic over a remote-TPU link)."""
+    20-step fixed-point loop would otherwise dispatch ~100 tiny eager
+    ops."""
     ray = pinhole_unproject(params, uv)
     return pinhole_project_linear(params, ray)
 

@@ -1,6 +1,6 @@
 """Closed-form Sim3/SE3 alignment + vmapped RANSAC.
 
-TPU-native replacement for the reference's Sim3Solver (src/Sim3Solver.cc:
+Replacement for the reference's Sim3Solver (src/Sim3Solver.cc:
 Horn's quaternion method on 3-point minimal sets inside a sequential RANSAC
 loop with reprojection-error inlier checks, used by loop/merge detection at
 src/LoopClosing.cc:690). Here all hypotheses are evaluated at once: minimal

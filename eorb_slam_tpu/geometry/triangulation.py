@@ -24,7 +24,7 @@ def triangulate_dlt(T1: jnp.ndarray, T2: jnp.ndarray,
 
     Returns world points (...,3). Solves the 4x4 homogeneous system via the
     normal-equations eigenvector (smallest eigenvalue of A^T A), which
-    vmaps/compiles cleanly on TPU (no per-point SVD)."""
+    vmaps/compiles cleanly under jit (no per-point SVD)."""
     P1 = T1[..., :3, :]  # (...,3,4)
     P2 = T2[..., :3, :]
 

@@ -1,7 +1,7 @@
 """Monocular two-view initialization: vmapped H/F RANSAC + model selection
 + motion recovery, all inside one jit.
 
-TPU-native re-design of the reference TwoViewReconstruction
+Re-design of the reference TwoViewReconstruction
 (src/TwoViewReconstruction.cc): instead of two host threads racing H vs F
 with early-exit RANSAC (:131-132), all `iters` hypotheses of BOTH models
 are scored as one batched computation (vmapped minimal solvers + dense

@@ -1,6 +1,6 @@
 """On-manifold IMU preintegration (Forster et al.) as a jitted scan.
 
-TPU-native equivalent of ``IMU::Preintegrated`` (reference
+Equivalent of ``IMU::Preintegrated`` (reference
 src/IMU/ImuTypes.cc, include/IMU/ImuTypes.h:155-267): fixed-shape
 measurement windows ``(S,3)`` with validity masks, integrated by
 ``lax.scan``; state order is (R, V, P) + (bg, ba) exactly as the

@@ -6,20 +6,21 @@ include/Event/EventData.h:75-126) and its first-class `MySensorConfig`
 (reference include/Utils/MyDataTypes.h:201-246) whose `isEvent/isImage/
 isInertial/isMonocular` predicates key every pipeline branch.
 
-The TPU build keeps the same YAML keys where they exist (`Camera.fx`,
-`Event.data.l1ChunkSize`, ...) so reference settings files can be reused,
-but parses them with PyYAML into plain dataclasses instead of OpenCV
-FileStorage.
+This engine keeps the same YAML keys where they exist (`Camera.fx`,
+`Event.data.l1ChunkSize`, ...) so reference settings files can be reused.
+They are read by a small parser for the subset of YAML that OpenCV
+FileStorage writes (:func:`parse_fs_yaml`) into plain dataclasses.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import json
+import re
 from typing import Optional
 
 import numpy as np
-import yaml
 
 
 class SensorConfig(enum.Enum):
@@ -244,6 +245,151 @@ class Settings:
     missing: tuple = ()            # keys that fell back to defaults (missParams analog)
 
 
+# ----------------------------------------------- OpenCV FileStorage YAML
+
+_INT = re.compile(r"[-+]?[0-9]+$")
+_FLOAT = re.compile(r"[-+]?(\.[0-9]+|[0-9]+(\.[0-9]*)?)([eE][-+]?[0-9]+)?$")
+_WORDS = {"true": True, "True": True, "TRUE": True, "false": False,
+          "False": False, "FALSE": False, "null": None, "Null": None,
+          "NULL": None, "~": None, "": None}
+
+
+def _strip_comment(line: str) -> str:
+    quote = None
+    for i, c in enumerate(line):
+        if quote:
+            if c == quote:
+                quote = None
+        elif c in "\"'":
+            quote = c
+        elif c == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def _split_flow(body: str) -> list:
+    """Top-level comma split of the inside of ``[...]``."""
+    items, depth, quote, cur = [], 0, None, ""
+    for c in body:
+        if quote:
+            quote = None if c == quote else quote
+        elif c in "\"'":
+            quote = c
+        elif c == "[":
+            depth += 1
+        elif c == "]":
+            depth -= 1
+        elif c == "," and depth == 0:
+            items.append(cur)
+            cur = ""
+            continue
+        cur += c
+    if cur.strip():
+        items.append(cur)
+    return items
+
+
+def _scalar(tok: str):
+    tok = tok.strip()
+    if tok.startswith("!!"):            # explicit tag on a scalar
+        tok = tok.split(None, 1)[1] if " " in tok else ""
+    if tok.startswith("["):
+        if not tok.endswith("]"):
+            raise ValueError(f"unterminated flow list: {tok!r}")
+        return [_scalar(t) for t in _split_flow(tok[1:-1])]
+    if tok.startswith("{"):
+        raise ValueError(f"flow maps are not supported: {tok!r}")
+    if len(tok) >= 2 and tok[0] == tok[-1] == '"':
+        return json.loads(tok)
+    if len(tok) >= 2 and tok[0] == tok[-1] == "'":
+        return tok[1:-1].replace("''", "'")
+    if tok in _WORDS:
+        return _WORDS[tok]
+    if _INT.match(tok):
+        return int(tok)
+    if _FLOAT.match(tok):
+        return float(tok)
+    return tok
+
+
+def parse_fs_yaml(text: str) -> dict:
+    """Parse the YAML subset of OpenCV FileStorage settings files.
+
+    Covers the ``%YAML:1.0`` header and ``---`` marker, ``#`` comments,
+    flat dotted keys and indented maps, ``- `` block lists, ``[a, b]``
+    flow lists (which may span lines), quoted strings, ints, floats,
+    booleans and nulls, and ``!!opencv-matrix`` nodes, which come back as
+    a map of ``rows``, ``cols``, ``dt`` and ``data``.
+    """
+    lines = []
+    pending = None
+    for raw in text.splitlines():
+        if raw.startswith("%") or raw.strip() in ("---", "..."):
+            continue
+        line = _strip_comment(raw).rstrip()
+        if pending is not None:           # continuation of a flow list
+            pending[1] += " " + line.strip()
+        elif not line.strip():
+            continue
+        else:
+            pending = [len(line) - len(line.lstrip(" ")), line.strip()]
+        if pending[1].count("[") <= pending[1].count("]"):
+            lines.append(tuple(pending))
+            pending = None
+    if pending is not None:
+        raise ValueError(f"unterminated flow list: {pending[1]!r}")
+
+    def block(i: int, indent: int):
+        if lines[i][1] == "-" or lines[i][1].startswith("- "):
+            return seq(i, indent)
+        return mapping(i, indent)
+
+    def child(i: int, indent: int, rest: str):
+        """Value of a key whose inline part is ``rest``; returns (v, i)."""
+        tag = rest.startswith("!!")
+        if rest and not (tag and " " not in rest):
+            return _scalar(rest), i
+        nxt = lines[i] if i < len(lines) else None
+        if nxt and (nxt[0] > indent or (
+                nxt[0] == indent and nxt[1].startswith("-") and not tag)):
+            return block(i, nxt[0])
+        return None, i
+
+    def mapping(i: int, indent: int):
+        out: dict = {}
+        while i < len(lines) and lines[i][0] == indent:
+            content = lines[i][1]
+            if content.startswith("- ") or content == "-":
+                break
+            key, sep, rest = content.partition(":")
+            if not sep or (rest and not rest.startswith(" ")):
+                raise ValueError(f"expected 'key: value', got {content!r}")
+            key = _scalar(key)
+            out[key], i = child(i + 1, indent, rest.strip())
+        if i < len(lines) and lines[i][0] > indent:
+            raise ValueError(f"unexpected indentation: {lines[i][1]!r}")
+        return out, i
+
+    def seq(i: int, indent: int):
+        out = []
+        while (i < len(lines) and lines[i][0] == indent
+               and (lines[i][1] == "-" or lines[i][1].startswith("- "))):
+            item = lines[i][1][1:].strip()
+            if ": " in item or item.endswith(":"):
+                raise ValueError(f"maps inside lists are not supported: "
+                                 f"{lines[i][1]!r}")
+            v, i = child(i + 1, indent, item)
+            out.append(v)
+        return out, i
+
+    if not lines:
+        return {}
+    out, i = block(0, lines[0][0])
+    if i != len(lines):
+        raise ValueError(f"unexpected line: {lines[i][1]!r}")
+    return out
+
+
 def _get(d: dict, key: str, default, missing: list):
     cur = d
     for part in key.split("."):
@@ -262,10 +408,7 @@ def load_settings(path: str) -> Settings:
     directive).
     """
     with open(path) as f:
-        text = f.read()
-    if text.startswith("%YAML"):
-        text = text.split("\n", 1)[1]
-    raw = yaml.safe_load(text) or {}
+        raw = parse_fs_yaml(f.read())
 
     # Flat "Camera.fx" keys -> nested dicts.
     nested: dict = {}

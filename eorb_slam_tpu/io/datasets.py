@@ -2,7 +2,7 @@
 
 Re-expresses the reference's L8 loaders (reference src/Utils/DataStore.cpp:473-737
 `EurocLoader`, src/Event/EventLoader.cpp:80,378 `EventDataStore`/`EvEthzLoader`)
-TPU-first: instead of per-line C++ parsing into std::vectors of structs, data
+array-first: instead of per-line C++ parsing into std::vectors of structs, data
 is parsed once (by the native C++ fast parser in `eorb_slam_tpu.io.native`
 when available, else NumPy) into contiguous arrays, and served as
 **fixed-shape, mask-padded chunks** ready for jitted kernels:
@@ -23,15 +23,13 @@ from typing import Optional
 
 import numpy as np
 
-from eorb_slam_tpu.io import native
+from eorb_slam_tpu.io import native, png
 
 
 def _load_image(path: str) -> np.ndarray:
-    """Load a grayscale image as float32 [0,1] without OpenCV."""
-    from PIL import Image  # pillow ships with the baked-in torch/transformers
-
-    im = Image.open(path).convert("L")
-    return np.asarray(im, np.float32) / 255.0
+    """Load a greyscale PNG frame as float32 [0,1]."""
+    img = png.read_png(path)
+    return img.astype(np.float32) / float(np.iinfo(img.dtype).max)
 
 
 def load_events_txt(path: str, max_events: Optional[int] = None) -> np.ndarray:
@@ -153,9 +151,7 @@ class Sequence:
 
     def depth(self, i: int) -> np.ndarray:
         """Metric depth map (meters); 0 = no reading (TUM convention)."""
-        from PIL import Image
-
-        arr = np.asarray(Image.open(self.depth_paths[i]), np.float32)
+        arr = png.read_png(self.depth_paths[i]).astype(np.float32)
         return arr / self.depth_factor
 
     @property

@@ -1,8 +1,9 @@
 """ctypes bridge to the native C++ fast-I/O library (native/fastio.cpp).
 
-Builds the shared library on first use with g++ (cached next to the source);
-every entry degrades to a None/False return so pure-Python fallbacks keep
-the framework functional where no toolchain exists.
+Builds the shared library on first use with g++ (cached next to the source,
+untracked by git); every entry degrades to a None/False return so the
+numpy fallbacks keep the framework functional where no toolchain exists.
+A failed build or load is logged once; :func:`available` reports it.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import tempfile
 import threading
 from typing import Optional
 
@@ -33,20 +35,33 @@ def _build_and_load() -> Optional[ctypes.CDLL]:
     out = os.path.join(ndir, "libfastio.so")
 
     def build() -> bool:
+        # build under a temporary name, then rename: concurrent processes
+        # never load a half-written library
+        fd, tmp = tempfile.mkstemp(prefix=".libfastio.", suffix=".so",
+                                   dir=ndir)
+        os.close(fd)
         cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", *srcs,
-               "-o", out, "-lpthread"]
+               "-o", tmp, "-lpthread"]
         try:
             subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+            os.replace(tmp, out)
             return True
-        except Exception:
+        except (OSError, subprocess.SubprocessError) as e:
+            err = getattr(e, "stderr", b"") or b""
+            _log().warning("native library build failed (%s): %s", e,
+                           err.decode(errors="replace")[-2000:])
             return False
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
 
     newest = max(os.path.getmtime(f) for f in srcs + hdrs if os.path.exists(f))
     if (not os.path.exists(out) or os.path.getmtime(out) < newest) and not build():
         return None
     try:
         lib = ctypes.CDLL(out)
-    except OSError:
+    except OSError as e:
+        _log().warning("native library failed to load: %s", e)
         return None
     try:
         return _bind(lib)
@@ -63,6 +78,12 @@ def _build_and_load() -> Optional[ctypes.CDLL]:
             return _bind(ctypes.CDLL(out))
         except (OSError, AttributeError):
             return None
+
+
+def _log():
+    from eorb_slam_tpu.utils.logging import get_logger
+
+    return get_logger("eorb.native")
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -113,6 +134,11 @@ def get_lib() -> Optional[ctypes.CDLL]:
             _LIB = _build_and_load()
             _TRIED = True
         return _LIB
+
+
+def available() -> bool:
+    """True when the native library built (or was current) and loaded."""
+    return get_lib() is not None
 
 
 def _parse(path: str, mode: int, max_rows: Optional[int]) -> Optional[np.ndarray]:

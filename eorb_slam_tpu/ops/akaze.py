@@ -1,4 +1,4 @@
-"""AKAZE features, TPU-native: nonlinear diffusion scale space, Hessian
+"""AKAZE features as fixed-shape JAX: nonlinear diffusion scale space, Hessian
 detection, and MLDB binary descriptors.
 
 Capability equivalent of the reference's AKAZE channel (``AKAZEextractor``
@@ -20,7 +20,7 @@ for XLA —
   gradient dx', dy'), and compares all intra-grid cell pairs: 486 bits,
   subsampled to 256 with a fixed seed — exactly OpenCV's
   ``descriptor_size`` random-bit-subset mechanism — so descriptors pack
-  into the same (K,8) uint32 / ±1-int8 layout the MXU Hamming matcher uses.
+  into the same (K,8) uint32 / ±1-int8 layout the matmul Hamming matcher uses.
 
 Levels are mapped onto the ORB pyramid-level convention (1.2^l), the same
 normalization the reference's MixedFrame does for octave bookkeeping
@@ -49,9 +49,8 @@ def _scharr(img: jnp.ndarray):
 
 
 def _conv2(img: jnp.ndarray, k: jnp.ndarray) -> jnp.ndarray:
-    """Small 2-D correlation as static-slice shift-and-fma: a C=1
-    lax.conv cannot tile onto the MXU (XLA:TPU lowers it to scalar window
-    code — see pyramid.gaussian_blur for the measurement)."""
+    """Small 2-D correlation as static-slice shift-and-fma instead of a
+    C=1 lax.conv (see pyramid.gaussian_blur)."""
     k = np.asarray(k)  # kernels must be host constants (see _scharr)
     kh, kw = k.shape
     ph, pw = kh // 2, kw // 2

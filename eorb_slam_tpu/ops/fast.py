@@ -1,6 +1,6 @@
 """Dense vectorized FAST-9/16 corner detection + grid-uniform selection.
 
-TPU-native re-design of the reference's per-cell OpenCV FAST calls and
+Re-design of the reference's per-cell OpenCV FAST calls and
 quad-tree keypoint distribution (reference src/ORBextractor.cc
 ComputeKeyPointsOctTree / DistributeOctTree): instead of dynamic trees,
 we compute a dense corner-score map with whole-image vector ops, apply

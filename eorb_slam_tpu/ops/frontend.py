@@ -25,7 +25,7 @@ class Features(NamedTuple):
     octave: jnp.ndarray    # (K,) int32 pyramid level
     response: jnp.ndarray  # (K,) float32 FAST score
     desc: jnp.ndarray      # (K,8) uint32 packed rBRIEF
-    desc_pm1: jnp.ndarray  # (K,256) int8 {-1,+1} for MXU matching
+    desc_pm1: jnp.ndarray  # (K,256) int8 {-1,+1} for matmul matching
     valid: jnp.ndarray     # (K,) bool
 
     @property
@@ -64,8 +64,7 @@ def extract(
     """img (H,W) [0,255] -> Features with capacity max_kp.
 
     Accepts uint8 or float32; cast happens ON DEVICE so callers can ship
-    uint8 frames (4x less host->device traffic — the dominant per-frame
-    cost over a remote-TPU link)."""
+    uint8 frames (4x less host->device traffic)."""
     img = img.astype(jnp.float32)
     levels = pyramid.build_pyramid(img, n_levels)
     quotas = level_quotas(max_kp, n_levels)

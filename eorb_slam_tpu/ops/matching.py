@@ -1,4 +1,4 @@
-"""Descriptor matching as MXU-shaped reductions.
+"""Descriptor matching as matmul-shaped reductions.
 
 Replaces ORBmatcher's scalar XOR/popcount loops and its 10 search variants
 (reference src/ORBmatcher.cc: SearchByProjection x4, SearchByBoW,

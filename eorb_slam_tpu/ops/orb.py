@@ -113,8 +113,8 @@ def describe(
 def unpack_pm1(desc: jnp.ndarray, dtype=jnp.int8) -> jnp.ndarray:
     """(N,8) uint32 -> (N,256) in {-1,+1}: Hamming distance becomes a matmul.
 
-    d_ham(a,b) = (256 - a_pm1 . b_pm1) / 2 — this is how the matcher rides
-    the MXU instead of doing XOR+popcount scalar loops."""
+    d_ham(a,b) = (256 - a_pm1 . b_pm1) / 2 — this is how the matcher runs
+    as one int8 matmul instead of XOR+popcount scalar loops."""
     shifts = jnp.arange(32, dtype=jnp.uint32)
     bits = (desc[..., None] >> shifts[None, None, :]) & jnp.uint32(1)
     bits = bits.reshape(desc.shape[0], DESC_BITS)

@@ -55,10 +55,9 @@ def gaussian_blur(img: jnp.ndarray, ksize: int = 7, sigma: float = 2.0) -> jnp.n
     """Separable Gaussian blur, replicate padding (matches cv2 BORDER_REFLECT_101
     closely enough for descriptor sampling).
 
-    Implemented as static-slice shift-and-fma, NOT lax.conv: a C=1 conv
-    cannot tile onto the MXU and XLA:TPU lowers it to scalar window code —
-    measured 24 ms for the 8-level pyramid vs ~1 ms for this form (the
-    whole per-frame budget is 42 ms; see tools/profile_tracking.py)."""
+    Implemented as static-slice shift-and-fma, NOT a C=1 lax.conv, which
+    XLA fuses into one elementwise kernel per pass. Whether a cuDNN
+    convolution beats it on the GPU is not measured yet."""
     k = _gauss_kernel(ksize, sigma)
     pad = ksize // 2
     h, w = img.shape

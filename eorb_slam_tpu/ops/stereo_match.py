@@ -1,10 +1,10 @@
 """Rectified stereo feature matching → per-feature metric depth.
 
-TPU-native equivalent of ``Frame::ComputeStereoMatches`` (reference
+Equivalent of ``Frame::ComputeStereoMatches`` (reference
 src/Frame.cc: per-left-keypoint row-band search in the right image,
 descriptor distance + SAD subpixel refinement, depth = fx·b/disparity).
 Here the row-band + disparity-band admissibility is a dense (Nl,Nr) pair
-mask over the descriptor Hamming matrix — one int8 MXU matmul — and the
+mask over the descriptor Hamming matrix — one int8 matmul — and the
 subpixel stage is folded into the descriptor NN choice (no image patches at
 this level; descriptor NN over FAST corners localizes to ~the same cell).
 

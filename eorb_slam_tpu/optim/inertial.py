@@ -1,14 +1,13 @@
 """Inertial residuals + inertial-only initialization optimization.
 
-TPU-native replacement for the reference's inertial g2o machinery:
+Replacement for the reference's inertial g2o machinery:
 - ``inertial_residual`` = ``EdgeInertial`` (9-dim preintegration residual,
   reference include/G2oTypes.h:60-822, src/G2oTypes.cc)
 - ``inertial_init`` = ``Optimizer::InertialOptimization`` (gravity
   direction, scale, biases, velocities with poses fixed — reference
   src/Optimizer.cc:6345,:6544) solved as one damped GN over a small packed
   parameter vector with autodiff Jacobians (jacfwd — the parameter count is
-  3K+9, tiny next to the residual work, so forward-mode is the right shape
-  for the MXU).
+  3K+9, tiny next to the residual work, so forward-mode is the right shape).
 
 All poses here are **body-in-world** (Rwb, pwb); conversion from camera
 poses is imu.preintegration.Twb_from_Tcw.

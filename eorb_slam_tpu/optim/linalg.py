@@ -3,8 +3,8 @@
 float32 normal equations in SLAM mix units (pixels^2 information against
 meter/radian state), giving condition numbers that break a plain f32
 Cholesky solve. Jacobi (diagonal) pre-conditioning fixes the scale
-disparity at negligible cost — required for convergence on TPU where
-float64 is not an option.
+disparity at negligible cost — required for convergence in float32
+(float64 is off on the device).
 """
 
 from __future__ import annotations

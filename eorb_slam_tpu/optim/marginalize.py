@@ -6,7 +6,7 @@ Reference parity: ``Optimizer::Marginalize`` (reference src/Optimizer.cc:6229),
 ``Optimizer::PoseInertialOptimizationLastFrame`` (src/Optimizer.cc:9006,
 include/G2oTypes.h:600-670).
 
-TPU-native shape: all three Schur tools are pure jittable functions on a dense
+Shape: all three Schur tools are pure jittable functions on a dense
 (N,N) Hessian with *static* block bounds (the reference also works on small
 dense Eigen matrices — 30x30 for the two-frame VI problem — so a dense SVD
 pseudo-inverse is the right tool on both platforms). The prior is a NamedTuple

@@ -1,6 +1,6 @@
 """Essential-graph (pose-graph) optimization over Sim3 / SE3 / 4-DoF.
 
-TPU-native replacement for the reference's loop-closing back-ends
+Replacement for the reference's loop-closing back-ends
 (src/Optimizer.cc OptimizeEssentialGraph :2873, 6-DoF merge variant :3638,
 OptimizeEssentialGraph4DoF :9442 — all g2o LM over relative-pose edges).
 
@@ -15,7 +15,7 @@ The residual chart per edge is [t_err, so3_log(R_err), log(s_err)] of
 S_err = S_meas_ji * S_i * S_j^-1 (identity when consistent).
 
 K is small (<= a few hundred KFs), so the normal equations are one dense
-(7K,7K) solve — an ideal MXU shape; Jacobians come from jax.jacfwd of the
+(7K,7K) solve; Jacobians come from jax.jacfwd of the
 whole stacked residual, traced once.
 """
 

@@ -1,6 +1,6 @@
 """Motion-only pose optimization (tracking inner loop).
 
-TPU-native equivalent of Optimizer::PoseOptimization (reference
+Equivalent of Optimizer::PoseOptimization (reference
 src/Optimizer.cc:880): 4 rounds x 10 Gauss-Newton iterations over the
 current frame's map-point matches, Huber(sqrt(5.991)) in the first rounds,
 per-round outlier re-classification at chi2 > 5.991, outliers removed from

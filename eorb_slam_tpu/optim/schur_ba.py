@@ -7,8 +7,8 @@ visual parts of MyOptimizer/EvOptimizer (reference src/Optimizer.cc:53,
 local-window, and global BA are all *configurations* (which poses are
 masked fixed) of the same jitted function.
 
-TPU-first data layout
----------------------
+Data layout
+-----------
 Observations are **landmark-major**: a fixed-shape table ``(M, P)`` where
 ``M`` = landmark capacity and ``P`` = max observations per landmark. This
 makes the Schur products dense einsums:
@@ -21,8 +21,7 @@ makes the Schur products dense einsums:
 
 The reduced camera system S is solved **dense** — for the local-BA window
 sizes of ORB-SLAM-class problems (K <= a few hundred) a dense 6Kx6K solve
-maps straight onto the MXU and beats sparse scalar code by orders of
-magnitude. Landmark back-substitution is a closed-form batched 3x3 solve.
+is a few dense matrix kernels instead of sparse scalar code. Landmark back-substitution is a closed-form batched 3x3 solve.
 
 Fixed-shape everything: validity masks instead of dynamic graphs. Invalid
 slots carry zero weight and point at index 0.
@@ -95,8 +94,8 @@ def _inv3x3(A: jnp.ndarray) -> jnp.ndarray:
 
 
 def _inv3x3_cols(A: jnp.ndarray) -> jnp.ndarray:
-    """Closed-form inverse of a (3,3,N) stack — TPU column layout (the batch
-    axis stays in vector lanes; a trailing (3,3) tile would pad to (8,128))."""
+    """Closed-form inverse of a (3,3,N) stack — column layout (the batch
+    axis stays last and contiguous)."""
     a, b, c = A[0, 0], A[0, 1], A[0, 2]
     d, e, f = A[1, 0], A[1, 1], A[1, 2]
     g, h, i = A[2, 0], A[2, 1], A[2, 2]
@@ -147,7 +146,7 @@ def _robust_cost(chi2, valid, use_huber):
 
 
 def _schur_pieces(p: BAProblem, kf_T, lm_pos, lam, use_huber):
-    """Local (per-landmark-shard) Schur pieces — TPU-layout-tuned path.
+    """Local (per-landmark-shard) Schur pieces — lane-layout path.
 
     Returns (S, b_s, Wf, Vinv, b_l) where S (K,K,6,6) carries U on the
     diagonal and -Y W^T off it, b_s (K,6) is the reduced RHS, and Wf
@@ -161,12 +160,10 @@ def _schur_pieces(p: BAProblem, kf_T, lm_pos, lam, use_huber):
     matmuls: 16k tiny matmuls lower to padded VPU loops, while one fused
     elementwise stack is a single kernel.
 
-    Layout rule: on TPU the LAST dim maps to 128 vector lanes and the
-    second-to-last to 8 sublanes — a trailing dim of 3 or 6 pads to 128 and
-    burns ~20-40x the bandwidth the math needs. So every per-observation
-    quantity here is a flat ``(coeff, M*P)`` array: small coefficient axes
-    (6, 3, 36...) live in sublanes, the long observation axis in lanes. The
-    reductions then ride the MXU as three GEMMs:
+    Layout rule: every per-observation quantity here is a flat
+    ``(coeff, M*P)`` array — small coefficient axes (6, 3, 36...) first,
+    the long observation axis last and contiguous, so no trailing dim of 3
+    or 6 is padded. The reductions are then three GEMMs:
 
       U   = Up36 (36,MP) @ onehot (MP,K)          block-diag camera system
       Wf  = per-landmark P-contraction (batched over M)
@@ -317,8 +314,8 @@ def _schur_pieces_ref(p: BAProblem, kf_T, lm_pos, lam, use_huber):
     lm_free = p.lm_valid.astype(dtype)
     Vinv = _inv3x3(V_d) * lm_free[:, None, None]
 
-    # camera blocks — one-hot contractions instead of scatter-add: TPU
-    # scatters serialize, while these einsums map onto the MXU.
+    # camera blocks — one-hot contractions instead of scatter-add (a
+    # choice to re-measure against scatter-add on the GPU)
     O = jax.nn.one_hot(p.obs_kf, K, dtype=dtype)              # (M,P,K)
     U_obs = jnp.einsum("mpij,mpik->mpjk", wJp, Jp)            # (M,P,6,6)
     b_c_obs = -jnp.einsum("mpij,mpi->mpj", wJp, r)            # (M,P,6)

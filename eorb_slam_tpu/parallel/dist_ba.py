@@ -1,9 +1,9 @@
 """Distributed bundle adjustment: landmarks sharded over the device mesh.
 
-TPU-native replacement for the reference's single-threaded g2o BA
+Replacement for the reference's single-threaded g2o BA
 (src/Optimizer.cc LocalBundleAdjustment/GlobalBundleAdjustemnt): each device
 owns a shard of the landmark-major observation table, computes its partial
-reduced camera system (Schur pieces), psums it over ICI, solves the dense
+reduced camera system (Schur pieces), psums it over the interconnect, solves the dense
 6Kx6K system redundantly-replicated, and back-substitutes its own landmark
 shard locally. Communication per LM iteration is exactly one psum of
 (K,K,6,6) + (K,6) — independent of the number of landmarks/observations.

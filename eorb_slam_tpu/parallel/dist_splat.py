@@ -1,13 +1,13 @@
 """Event-stream data parallelism: shard the event batch across the mesh,
 splat each shard into a private accumulator, all-reduce the [H,W] image.
 
-This is the TPU-native long-sequence axis the reference does not have
+This is the long-sequence axis the reference does not have
 (SURVEY §5.7): its event windows are consumed serially on one CPU thread
 (src/Event/EvImBuilder.cpp:1300-1515). Here the Gaussian-splat accumulator
 is a sum over events, so the event axis shards freely — each device
-contracts its slice of the separable weight matrices on its own MXU and a
-single ``psum`` of the (H,W) accumulator (~169 KiB at 240x180 f32) merges
-the partial images over ICI. Payload is independent of the event count, so
+contracts its slice of the separable weight matrices and a single
+``psum`` of the (H,W) accumulator (~169 KiB at 240x180 f32) merges the
+partial images over NVLink (all to all, so the flat 1-D mesh fits). Payload is independent of the event count, so
 scaling efficiency grows with window size.
 
 The same pattern extends to every event-window reduction (contrast scores,

@@ -1,10 +1,12 @@
 """Device-mesh helpers.
 
 The reference has no distributed computing (single process, 9 threads —
-SURVEY.md §2.10/§5.8). The TPU framework scales the *data axes* instead:
+SURVEY.md §2.10/§5.8). This engine scales the *data axes* instead:
 landmarks/observations shard over the mesh for bundle adjustment, event
-batches shard for tensorization. One 1-D "lm" axis covers both; multi-host
-runs extend it across hosts via jax.distributed.
+batches shard for tensorization. One flat 1-D "lm" axis covers both (every
+GPU of a host reaches every other over NVLink at the same rate, so the mesh
+needs no topology); multi-host runs extend it across hosts via
+jax.distributed.
 """
 
 from __future__ import annotations

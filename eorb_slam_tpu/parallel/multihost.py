@@ -1,12 +1,13 @@
 """Multi-host initialization + distributed-BA launch helpers.
 
-The reference is a single process (SURVEY.md §5.8); the TPU framework's
+The reference is a single process (SURVEY.md §5.8); this engine's
 scale-out axis is the device mesh, extended across hosts with
 ``jax.distributed``. One call per process wires the coordination service;
 the landmark axis of the BA mesh then spans every host's devices and the
-per-iteration psum of the reduced camera system rides ICI within a host and
-DCN across hosts (see parallel/dist_ba.py — the payload is the dense
-(K,K,6,6)+(K,6) camera system, independent of the landmark count).
+per-iteration psum of the reduced camera system runs over NVLink within a
+host and the network across hosts (see parallel/dist_ba.py — the payload is
+the dense (K,K,6,6)+(K,6) camera system, independent of the landmark
+count).
 
 Typical use (one line near the top of each process):
 
@@ -31,8 +32,8 @@ def init(coordinator: Optional[str] = None,
     """Initialize jax.distributed for this process.
 
     With no arguments, reads the standard env vars
-    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID) or the
-    cloud-TPU auto-detection path.
+    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID); where
+    no cluster environment announces them, pass all three.
     """
     import jax
 
@@ -101,7 +102,8 @@ def comm_report(K: int, M: int, P: int, n_devices: int) -> dict:
     per iteration; landmark work stays local).
 
     Returns bytes moved per iteration per device, local FLOPs, and the
-    comm/compute ratio — the quantity that decides DCN viability."""
+    comm/compute ratio — the quantity that decides whether a cross-host
+    network keeps up."""
     # psum payload: S (K,K,6,6) + b (K,6) + cost scalars, float32
     comm_bytes = 4 * (K * K * 36 + K * 6 + 4)
     # local compute: per-observation residual/Jacobian (~2.5k flops) +

@@ -1,11 +1,11 @@
-"""Bag-of-words place recognition as dense TPU math.
+"""Bag-of-words place recognition as dense matrix math.
 
-TPU-native replacement for DBoW2 (reference Thirdparty/DBoW2 +
+Replacement for DBoW2 (reference Thirdparty/DBoW2 +
 include/ORBVocabulary.h + src/KeyFrameDatabase.cc). The reference walks a
 6-level-10-branch vocabulary tree per descriptor (pointer chasing) and keeps
 an inverted index word->keyframes. Here the vocabulary is a flat codebook of
 V binary words stored as +-1 int8 rows; quantization of all N descriptors of
-a frame is ONE (N,256)x(256,V) matmul on the MXU (Hamming distance is an
+a frame is ONE (N,256)x(256,V) matmul (Hamming distance is an
 affine function of the +-1 dot product), and database queries are one
 (V,)x(V,Kmax) matmul against the stored tf-idf matrix.
 
@@ -82,7 +82,7 @@ def load_vocab_text(path: str, max_words: int | None = None) -> np.ndarray:
 def quantize(desc_pm1: jnp.ndarray, feat_valid: jnp.ndarray,
              words_pm1: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Assign each descriptor to its nearest word; return (word_ids (N,),
-    bow (V,) L1-normalized tf vector). One MXU matmul for the whole frame."""
+    bow (V,) L1-normalized tf vector). One matmul for the whole frame."""
     sim = desc_pm1.astype(jnp.float32) @ words_pm1.astype(jnp.float32).T
     wid = jnp.argmax(sim, axis=1).astype(jnp.int32)
     V = words_pm1.shape[0]
@@ -132,9 +132,9 @@ def erase_keyframe(db: KeyFrameDatabase, slot) -> KeyFrameDatabase:
 #
 # Real-vocabulary scale (ORBvoc has ~1M leaf words): a flat (V,256) codebook
 # needs a 10^9-FLOP quantize matmul per frame and the dense (Kmax,V) tf
-# matrix hundreds of MB. The TPU-native equivalent of DBoW2's 6-level tree
+# matrix hundreds of MB. The dense-math equivalent of DBoW2's 6-level tree
 # is a 2-level product: one coarse matmul picks a cell, one small batched
-# matmul picks the word inside the cell — both MXU-shaped — and keyframes
+# matmul picks the word inside the cell — both dense matmuls — and keyframes
 # store SPARSE (word_id, weight) lists sized by the feature budget.
 
 
@@ -259,7 +259,7 @@ def load_vocab_text_hier(path: str, K1: int = 256,
 def quantize_hier(desc_pm1: jnp.ndarray, feat_valid: jnp.ndarray,
                   voc: HierVocab):
     """(N,256) descriptors -> (word_ids (N,) int32 [-1 invalid],
-    weights (N,) float32). Two MXU matmuls, no pointer chasing."""
+    weights (N,) float32). Two matmuls, no pointer chasing."""
     df = desc_pm1.astype(jnp.float32)
     cell = jnp.argmax(df @ voc.words1.astype(jnp.float32).T, axis=1)
     sub = voc.words2[cell].astype(jnp.float32)          # (N,K2,256)

@@ -1,6 +1,6 @@
 """Atlas: multi-map container with lost-tracking recovery and map merging.
 
-TPU-native replacement for the reference's Atlas (src/Atlas.cc,
+Replacement for the reference's Atlas (src/Atlas.cc,
 include/Atlas.h:49-169): active map + stored maps, `CreateNewMap` when
 tracking is irrecoverably lost, merge of a stored map into the active one
 when a common region is found (src/LoopClosing.cc MergeLocal :1301).

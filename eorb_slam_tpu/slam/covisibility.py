@@ -1,6 +1,6 @@
 """Covisibility graph as dense tensor math.
 
-TPU-native replacement for the reference's per-KF covisibility bookkeeping
+Replacement for the reference's per-KF covisibility bookkeeping
 (KeyFrame::UpdateConnections / GetVectorCovisibleKeyFrames, src/KeyFrame.cc:
 weighted edges between KFs sharing >= 15 map points, plus a spanning tree).
 The pointer-graph becomes one matmul: with A (M,K) the landmark-observed-by-

@@ -760,8 +760,8 @@ class EvImageSlam:
 
     def _joint_solve(self, ts, tr_i, f_i, tr_e, f_e, s, R_ie, t_ie, resid):
         # ONE dispatch for the joint solve + ONE packed flags pull (the
-        # eager gather/concat/solve path was ~10 round trips per frame on
-        # a remote link). Event points carry half weight: Sim3-bridged
+        # eager gather/concat/solve path was ~10 blocking syncs per frame).
+        # Event points carry half weight: Sim3-bridged
         # through an estimated (drifting) gauge, and MCI keypoints are
         # intrinsically blurrier.
         Tj, flags = _joint_pose_step(

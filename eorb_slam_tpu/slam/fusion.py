@@ -1,6 +1,6 @@
 """Event-ORB trajectory/map fusion — the reference's global Atlas merge.
 
-TPU-native equivalent of ``System::FuseEventORB`` (reference
+Equivalent of ``System::FuseEventORB`` (reference
 src/System.cc:1022-1034) -> ``MyOptimizer::MergeVisualEvent``
 (src/Utils/MyOptimizer.cpp:3471), which welds the event-tracker keyframe
 chains into the image-tracker keyframe graph by **timestamp-interpolated
@@ -19,7 +19,7 @@ and (b) anchor edges to the interpolated image poses at its timestamps.
 Image vertices are held fixed: the image map is the gauge master, exactly
 as the reference rescales the event side only (ApplyScaleAndRotationEvSynch,
 src/LoopClosing.cc:2075-2094). The solve is a single jitted masked GN over
-dense (7K,7K) normal equations — MXU-friendly, no g2o.
+dense (7K,7K) normal equations, no g2o.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Loop closing: detection, Sim3 verification, essential-graph correction.
 
-TPU-native replacement for the reference's LoopClosing thread
+Replacement for the reference's LoopClosing thread
 (src/LoopClosing.cc): NewDetectCommonRegions (:267) = BoW retrieval +
 Sim3Solver RANSAC + projection verification; CorrectLoop (:1062) = Sim3
 propagation + essential-graph optimization (src/Optimizer.cc:2873) + global

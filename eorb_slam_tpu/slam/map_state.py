@@ -1,6 +1,6 @@
 """Fixed-capacity tensor map state.
 
-TPU-native replacement for the reference's pointer-graph map
+Replacement for the reference's pointer-graph map
 (Frame/KeyFrame/MapPoint/Map/Atlas, reference src/{Frame,KeyFrame,MapPoint,
 Map,Atlas}.cc): keyframes, landmarks, and a landmark-major observation
 table live in pre-allocated arrays with validity masks. Allocation is a

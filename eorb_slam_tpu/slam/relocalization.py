@@ -1,6 +1,6 @@
 """Relocalization: batched PnP RANSAC + pose refinement.
 
-TPU-native replacement for the reference's relocalization path
+Replacement for the reference's relocalization path
 (src/Tracking.cc:2641-2730: KeyFrameDatabase candidates -> ORBmatcher
 SearchByBoW -> MLPnPsolver RANSAC (src/MLPnPsolver.cpp) -> PoseOptimization).
 

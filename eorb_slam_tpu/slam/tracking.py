@@ -4,7 +4,7 @@ Replaces Tracking::TrackWithMotionModel + TrackLocalMap (reference
 src/Tracking.cc:1816,:1924): the local-map point selection via covisibility
 sets becomes a frustum + window mask over ALL landmarks — at SLAM-scale
 capacities the full (N_feat x M_landmarks) Hamming matrix is a single int8
-MXU matmul, cheaper than host-side set bookkeeping.
+matmul, cheaper than host-side set bookkeeping.
 
 Stages inside one jit:
  1. project all landmarks with the predicted pose,
@@ -163,9 +163,8 @@ def track_image_frame(
     -> motion-model predict -> project/match/pose-optimize -> packed host
     flags + relative-pose trajectory entry.
 
-    On a remote-TPU link every separate dispatch costs a round trip; the
-    deployed per-frame cost is one H2D (uint8 image), one fused program,
-    one small result pull."""
+    The per-frame cost is one H2D (uint8 image), one fused program, one
+    small result pull."""
     from eorb_slam_tpu.ops import frontend as fe
 
     feats = fe.extract(img, max_kp=max_kp)

@@ -8,8 +8,8 @@ per-tracker state text (src/FrameDrawer.cc, include/Utils/MyFrameDrawer.h:
 19-60), and ``Visualization``'s MCI image dumps / SimpleImageDisplay queue
 (include/Utils/Visualization.h:26-40). No GUI thread: figures render to
 arrays/PNGs via matplotlib's Agg backend, suitable for notebooks, CI
-artifacts, and offline inspection — a deliberate TPU-first trade (headless
-fleet machines; a live window adds a host thread for zero accuracy).
+artifacts, and offline inspection — a deliberate trade (headless
+accelerator machines; a live window adds a host thread for zero accuracy).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 // evqueue: native event-stream queue + background file streamer.
 //
-// TPU-native runtime counterpart of the reference's event buffer machinery:
+// Runtime counterpart of the reference's event buffer machinery:
 // EvTrackManager owns SharedQueue/EventQueue buffers with overlap-aware
 // consumption and front re-injection (reference
 // include/Event/EventData.h:130-139 EventQueue::consumeBegin;

@@ -1,6 +1,6 @@
-// fastio: native text-data parsers for the TPU SLAM framework's host I/O.
+// fastio: native text-data parsers for the SLAM engine's host I/O.
 //
-// TPU-native counterpart of the reference's hot host-side parsing loops
+// Counterpart of the reference's hot host-side parsing loops
 // (reference src/Event/EventLoader.cpp:80 parseLine — per-line istringstream
 // over millions of events; src/Utils/DataStore.cpp getTxtData chunked line
 // reader). Events files run to 1e8 lines, so parsing is a genuine host

@@ -3,7 +3,7 @@ sparse per-keyframe tf-idf index, retrieval semantics, lifecycle.
 
 Reference: DBoW2 TemplatedVocabulary (6-level tree, idf weights) +
 KeyFrameDatabase inverted index (src/KeyFrameDatabase.cc:612,783); the
-TPU-native form is two MXU matmuls per frame + sparse word rows (see
+dense form is two matmuls per frame + sparse word rows (see
 retrieval/bow.py)."""
 
 import numpy as np
@@ -233,7 +233,7 @@ import jax
 
 @pytest.mark.slow
 def test_orbvoc_text_import_100k_e2e():
-    """The ORBvoc.txt import pathway at real scale (VERDICT r4 item 10):
+    """The ORBvoc.txt import pathway at real scale:
     generate a 100k-leaf vocabulary file in the DBoW2 text format the
     reference ships (include/ORBVocabulary.h -> TemplatedVocabulary::
     loadFromTextFile), import it with load_vocab_text_hier, and drive the
@@ -310,5 +310,5 @@ def test_orbvoc_text_import_100k_e2e():
     med_ms = float(np.median(t) * 1e3)
     # budget: well under the 24 fps frame period even on a loaded shared
     # CPU runner (measured ~76 ms under full parallel-suite load, ~15 ms
-    # unloaded; the TPU path is matmul-bound and far faster)
+    # unloaded)
     assert med_ms < 120.0, f"quantize+query {med_ms:.2f} ms/frame"

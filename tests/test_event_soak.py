@@ -1,4 +1,4 @@
-"""Long-run event-image soak (VERDICT r4 item 9): a 60 s orbit with
+"""Long-run event-image soak: a 60 s orbit with
 repeated revisits through the EVENT_MONO joint pipeline — both trackers
 live, loop corrections firing, the joint coupling engaged throughout, and
 no post-weld gauge tear (windowed APE cliff check, like the mono soak).

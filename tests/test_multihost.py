@@ -1,10 +1,10 @@
 """Multi-host (2-process) distributed bundle adjustment over jax.distributed.
 
 The reference has nothing to compare here (single process, SURVEY.md §5.8);
-this validates the DCN story of the TPU design: two OS processes, one global
-mesh, landmark-sharded BA with the per-iteration psum of the reduced camera
+this validates the multi-host design: two OS processes, one global mesh,
+landmark-sharded BA with the per-iteration psum of the reduced camera
 system crossing the process boundary (Gloo CPU collectives stand in for
-ICI/DCN). Parity gate: the 2-process solve must match the single-process
+the card interconnect). Parity gate: the 2-process solve must match the single-process
 solve bit-close.
 """
 
@@ -108,4 +108,4 @@ def test_comm_report_shapes():
 
     r = multihost.comm_report(K=32, M=8192, P=8, n_devices=8)
     assert r["psum_bytes_per_iter"] == 4 * (32 * 32 * 36 + 32 * 6 + 4)
-    assert r["flops_per_byte"] > 10  # compute-bound even on DCN
+    assert r["flops_per_byte"] > 10  # compute-bound even across hosts

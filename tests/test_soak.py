@@ -1,6 +1,5 @@
 """Long-run soak: thousands of frames on a closed loop with repeated
-revisits (VERDICT r3 item 9 — hardening the synthetic gates where real data
-can't reach).
+revisits (hardening the synthetic gates where real data can't reach).
 
 A 5,000-frame orbit sequence revisits the same wall sections every lap, so
 keyframe culling + duplicate-landmark fusion + the loop closer all run many

@@ -13,7 +13,7 @@ masquerade as results):
 - APE %-of-path within a per-mode bound;
 - at least MIN_ROWS rows total (all 10 sensor configs ran).
 
-Usage: python tools/make_results.py results/r5/summary.txt > RESULTS.md
+Usage: python tools/make_results.py results/r5/summary.txt > results/r5/RESULTS.md
 """
 
 from __future__ import annotations
@@ -76,9 +76,9 @@ def main(path: str):
         dedup[(detect_mode(d), d.get("sequence"))] = d
     rows = list(dedup.values())
 
-    print("# RESULTS — synthetic benchmark sequences (round 5)\n")
+    print("# RESULTS — synthetic benchmark sequences\n")
     print(
-        "Full application path on the real TPU: dataset files on disk in\n"
+        "Full application path on the accelerator: dataset files on disk in\n"
         "the reference's EuRoC / EV-ETHZ layouts (rendered by\n"
         "`eorb_slam_tpu.io.synth_dataset` — no network in this environment;\n"
         "see BASELINE.md for why no in-repo reference numbers exist), loaded\n"
@@ -105,7 +105,7 @@ def main(path: str):
                         st.get("l2_kf_culled", im.get("kf_culled", 0)))
         loops = st.get("loops", im.get("loops", 0))
         extra = f" +{loops}loops" if loops else ""
-        # joint-coupling counters (event-image modes; VERDICT r4 weak #3)
+        # joint-coupling counters (event-image modes)
         joint = ""
         if "joint_frames" in st:
             frames = max(im.get("frames", 1), 1)

@@ -50,9 +50,9 @@ run synth_ev_imu_mono.yaml       # EVENT_IMU_MONO
 
 # gates: a failing row (missing mode, tracked fraction, APE bound) makes
 # the whole phase fail — telemetry that cannot fail is not a gate
-if python tools/make_results.py "$SUM" > RESULTS.md; then
+if python tools/make_results.py "$SUM" > "$OUT/RESULTS.md"; then
   echo "phase B done, ALL GATES PASS -> $SUM" >&2
 else
-  echo "phase B done, GATES FAILED (see RESULTS.md tail) -> $SUM" >&2
+  echo "phase B done, GATES FAILED (see $OUT/RESULTS.md tail) -> $SUM" >&2
   exit 1
 fi
